@@ -1,29 +1,6 @@
-"""longtail-tpu: a TPU-native incremental asset-delivery framework.
+"""The package's former name, kept so that existing imports and
+``python -m <this name>.cli`` reach ``longtail_jax`` (utils/alias.py)."""
 
-A from-scratch reimplementation of the capabilities of DanEngelbrecht/longtail
-(content-defined chunking, content-addressed dedup storage, incremental version
-sync) designed TPU-first:
+from longtail_jax.utils.alias import install
 
-- the data plane (CDC boundary scan, BLAKE3 chunk hashing, block compression)
-  runs as JAX/Pallas kernels over device-resident byte streams, sharded with
-  ``jax.sharding`` across a TPU mesh;
-- the control plane (zero-parse indices, composable block stores, CLI) is
-  host-side Python with serialized formats bit-compatible with the reference
-  C library (``/root/reference/src/longtail.c``).
-
-Nothing in this package is a port: the reference defines *what* (formats,
-semantics, API surface); the implementation here is built for XLA semantics
-(static shapes, batched kernels, collectives) rather than thread pools.
-"""
-
-__version__ = "0.1.0"
-
-from longtail_tpu.formats.version_index import VersionIndex
-from longtail_tpu.formats.store_index import BlockIndex, StoreIndex, StoredBlock
-
-__all__ = [
-    "VersionIndex",
-    "StoreIndex",
-    "BlockIndex",
-    "StoredBlock",
-]
+install(__name__)

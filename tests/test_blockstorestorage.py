@@ -8,11 +8,11 @@ consumers (GetFilesRecursively, CLI ls/cp) run over it unchanged.
 import numpy as np
 import pytest
 
-from longtail_tpu import api
-from longtail_tpu.formats import constants as C
-from longtail_tpu.stores.blockstorestorage import BlockStoreStorage
-from longtail_tpu.stores.fsblockstore import FSBlockStore
-from longtail_tpu.stores.storage import FSStorage, walk_files
+from longtail_jax import api
+from longtail_jax.formats import constants as C
+from longtail_jax.stores.blockstorestorage import BlockStoreStorage
+from longtail_jax.stores.fsblockstore import FSBlockStore
+from longtail_jax.stores.storage import FSStorage, walk_files
 
 
 @pytest.fixture

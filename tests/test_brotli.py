@@ -11,8 +11,8 @@ import ctypes
 import numpy as np
 import pytest
 
-from longtail_tpu.ops import brotli
-from longtail_tpu.ops.brotli_decode import BrotliError, decompress
+from longtail_jax.ops import brotli
+from longtail_jax.ops.brotli_decode import BrotliError, decompress
 
 pytestmark = pytest.mark.skipif(
     not brotli.available(),

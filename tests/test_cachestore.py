@@ -6,12 +6,12 @@ degradation, and preflight warming both tiers."""
 import numpy as np
 import pytest
 
-from longtail_tpu import api
-from longtail_tpu.stores.cacheblockstore import CacheBlockStore
-from longtail_tpu.stores.fsblockstore import FSBlockStore
-from longtail_tpu.stores.storage import MemStorage
+from longtail_jax import api
+from longtail_jax.stores.cacheblockstore import CacheBlockStore
+from longtail_jax.stores.fsblockstore import FSBlockStore
+from longtail_jax.stores.storage import MemStorage
 
-from tests.test_roundtrip import make_source, read_tree
+from test_roundtrip import make_source, read_tree
 
 
 class _OfflineStore:

@@ -7,7 +7,7 @@ import os
 import numpy as np
 import pytest
 
-from longtail_tpu.ops import cdc
+from longtail_jax.ops import cdc
 
 TESTDATA = os.path.join(os.path.dirname(__file__), "testdata")
 

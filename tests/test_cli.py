@@ -16,7 +16,7 @@ def cli(*args):
     env = dict(os.environ, PYTHONPATH=REPO, JAX_PLATFORMS="cpu",
                PYTHONIOENCODING="utf-8")
     return subprocess.run(
-        [sys.executable, "-m", "longtail_tpu.cli", *args],
+        [sys.executable, "-m", "longtail_jax.cli", *args],
         capture_output=True, text=True, encoding="utf-8", env=env,
         timeout=120)
 
@@ -105,3 +105,33 @@ def test_downsync_with_cache(synced, tmp_path):
     assert r.returncode == 0, r.stderr + r.stdout
     assert tree(dst) == tree(SAMPLE)
     assert os.path.isdir(cache)
+
+
+def test_device_refuses_a_silent_cpu(tmp_path, monkeypatch):
+    """--device on JAX's CPU backend fails unless JAX_PLATFORMS=cpu asked
+    for it, and leaves no codec switched to the device path."""
+    from longtail_jax import cli as cli_mod
+    from longtail_jax.ops.compression_registry import Lz4Codec, ZstdCodec
+
+    monkeypatch.delenv("JAX_PLATFORMS", raising=False)
+    with pytest.raises(SystemExit, match="no accelerator"):
+        cli_mod.main(["upsync", "--storage-uri", str(tmp_path / "store"),
+                      "--source-path", SAMPLE, "--target-path",
+                      str(tmp_path / "v.lvi"), "--device"])
+    assert not Lz4Codec.use_device and not ZstdCodec.use_device
+    assert not os.path.exists(tmp_path / "v.lvi")
+
+
+def test_device_upsync_on_cpu_when_asked(synced, tmp_path, monkeypatch):
+    """With JAX_PLATFORMS=cpu the device plane runs on the CPU, writes
+    the host run's .lvi byte for byte, and restores the codecs after."""
+    from longtail_jax import cli as cli_mod
+    from longtail_jax.ops.compression_registry import Lz4Codec, ZstdCodec
+
+    monkeypatch.setenv("JAX_PLATFORMS", "cpu")
+    lvi = tmp_path / "dev.lvi"
+    assert cli_mod.main(["upsync", "--storage-uri", str(tmp_path / "store"),
+                         "--source-path", SAMPLE, "--target-path", str(lvi),
+                         "--target-chunk-size", "512", "--device"]) == 0
+    assert not Lz4Codec.use_device and not ZstdCodec.use_device
+    assert lvi.read_bytes() == open(synced[2], "rb").read()

@@ -8,8 +8,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from longtail_tpu.ops import lz4  # noqa: E402
-from longtail_tpu.parallel.device_decode import (  # noqa: E402
+from longtail_jax.ops import lz4  # noqa: E402
+from longtail_jax.parallel.device_decode import (  # noqa: E402
     decode_block_device,
     parse_sequences,
 )
@@ -40,7 +40,7 @@ def test_device_decode_bit_exact(name, raw):
 
 def test_device_decode_anchor_encoded_block():
     """Blocks produced by the device ANCHOR encoder decode on device too
-    (encode-on-TPU -> decode-on-TPU closes the loop)."""
+    (encode-on-device -> decode-on-device closes the loop)."""
     rng = np.random.default_rng(3)
     tile = rng.integers(0, 256, 24 << 10, np.uint8).tobytes()
     raw = (tile * 20)[:300_000]

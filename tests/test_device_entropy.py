@@ -1,4 +1,4 @@
-"""TPU Huffman entropy stage (ops/device_entropy.py): the device-packed
+"""Device Huffman entropy stage (ops/device_entropy.py): the device-packed
 literal streams must be BYTE-IDENTICAL to the host encoder for exact
 histograms, and every produced frame must decode with upstream libzstd
 (when present) and the from-spec decoder."""
@@ -8,8 +8,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from longtail_tpu.ops import zstd_frame  # noqa: E402
-from longtail_tpu.ops.device_entropy import (  # noqa: E402
+from longtail_jax.ops import zstd_frame  # noqa: E402
+from longtail_jax.ops.device_entropy import (  # noqa: E402
     _split_blocks,
     device_histogram,
     encode_literals_device,
@@ -66,7 +66,7 @@ def test_large_literals_sampled_table_decodes():
 
 
 def _assert_upstream_decodes(frame: bytes, raw: bytes):
-    from longtail_tpu.ops import zstd as _z
+    from longtail_jax.ops import zstd as _z
 
     if _z._load_native() is not None:
         assert _z.decompress(frame, len(raw)) == raw
@@ -114,8 +114,8 @@ def test_frame_from_sequences_end_to_end():
     """Device-anchor sequences -> from-spec frame with device literals:
     decodes with the from-spec decoder AND upstream zstd; ratio within
     5% of libzstd level 3."""
-    from longtail_tpu.ops import zstd as _z
-    from longtail_tpu.ops.zstd_device import sequences_from_anchors
+    from longtail_jax.ops import zstd as _z
+    from longtail_jax.ops.zstd_device import sequences_from_anchors
 
     rng = np.random.default_rng(9)
     tile = rng.integers(0, 256, 24 << 10, np.uint8).tobytes()

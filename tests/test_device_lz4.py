@@ -8,8 +8,8 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from longtail_tpu.ops import lz4  # noqa: E402
-from longtail_tpu.parallel.device_lz4 import (  # noqa: E402
+from longtail_jax.ops import lz4  # noqa: E402
+from longtail_jax.parallel.device_lz4 import (  # noqa: E402
     ROW_BYTES,
     block_anchors,
     compress_block,

@@ -14,8 +14,9 @@ def test_dryrun_multichip_8():
 
 
 def test_entry_compiles():
-    """entry() is the production Pallas plane as one jittable step:
-    (sizes, n_chunks, lane-0 BLAKE3 lo/hi) — checked vs the host oracle."""
+    """entry() is the production device plane, in the forms the seam
+    picks for this backend, as one jittable step: (sizes, n_chunks, lane-0
+    BLAKE3 lo/hi) — checked vs the host oracle."""
     import __graft_entry__ as g
     fn, args = g.entry()
     out = jax.jit(fn)(*args)
@@ -24,8 +25,8 @@ def test_entry_compiles():
     assert sizes.shape[0] == n.shape[0]
     assert lo.shape == hi.shape
 
-    from longtail_tpu.ops import blake3, cdc
-    from longtail_tpu.parallel.device_chunker import ChunkerConfig
+    from longtail_jax.ops import blake3, cdc
+    from longtail_jax.parallel.device_chunker import ChunkerConfig
 
     cfg = ChunkerConfig.from_target(1024)
     rows_u8, lengths = args
@@ -45,9 +46,9 @@ def test_entry_compiles():
 def test_sharded_matches_unsharded():
     """ends/sizes from the sharded step == single-device index_parts."""
     from jax.sharding import Mesh
-    from longtail_tpu.parallel.device_chunker import (
+    from longtail_jax.parallel.device_chunker import (
         ChunkerConfig, make_index_parts_fn)
-    from longtail_tpu.parallel.distributed import make_sharded_index_fn
+    from longtail_jax.parallel.distributed import make_sharded_index_fn
 
     n = min(4, len(jax.devices()))
     mesh = Mesh(np.asarray(jax.devices()[:n]), ("d",))
@@ -68,7 +69,7 @@ def test_mesh_part_indexer_matches_single_and_pins_devices():
     """MeshPartIndexer: global submission order preserved, results
     bit-identical to the single-device pipeline, and each sub-indexer's
     batches committed to its own mesh device."""
-    from longtail_tpu.parallel.pipeline import (
+    from longtail_jax.parallel.pipeline import (
         DevicePartIndexer,
         MeshPartIndexer,
     )
@@ -102,9 +103,9 @@ def test_mesh_upsync_byte_identical_to_host():
     """api.upsync over a CPU mesh == host upsync, byte for byte (the
     dryrun's core assertion, as a fast unit test)."""
     from jax.sharding import Mesh
-    from longtail_tpu import api
-    from longtail_tpu.stores.fsblockstore import FSBlockStore
-    from longtail_tpu.stores.storage import MemStorage, ensure_parent_dirs
+    from longtail_jax import api
+    from longtail_jax.stores.fsblockstore import FSBlockStore
+    from longtail_jax.stores.storage import MemStorage, ensure_parent_dirs
 
     n = min(4, len(jax.devices()))
     mesh = Mesh(np.asarray(jax.devices()[:n]), ("d",))

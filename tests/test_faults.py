@@ -10,11 +10,11 @@ import threading
 import numpy as np
 import pytest
 
-from longtail_tpu import api
-from longtail_tpu.stores.compressblockstore import CompressBlockStore
-from longtail_tpu.stores.fsblockstore import FSBlockStore
-from longtail_tpu.stores.storage import MemStorage, StorageError
-from longtail_tpu.utils.cancel import Cancelled, CancelToken
+from longtail_jax import api
+from longtail_jax.stores.compressblockstore import CompressBlockStore
+from longtail_jax.stores.fsblockstore import FSBlockStore
+from longtail_jax.stores.storage import MemStorage, StorageError
+from longtail_jax.utils.cancel import Cancelled, CancelToken
 
 
 def make_source(storage, root, n_files=6, seed=5):
@@ -144,7 +144,7 @@ def test_concurrent_flush_through_lsi_lock():
     """Two FSBlockStore instances over one backing store flush
     concurrently; the merged store.lsi must contain both block sets
     (vs TestLongtailFSBlockStoreSync, test/test.cpp:6236)."""
-    from longtail_tpu.formats.store_index import StoreIndex
+    from longtail_jax.formats.store_index import StoreIndex
 
     storage = MemStorage()
     storage.create_dir("srcA")

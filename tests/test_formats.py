@@ -4,13 +4,13 @@ index read/write tests, test/test.cpp:489-1255)."""
 import numpy as np
 import pytest
 
-from longtail_tpu.formats.constants import (
+from longtail_jax.formats.constants import (
     CURRENT_STORE_INDEX_VERSION,
     CURRENT_VERSION_INDEX_VERSION,
     HASH_TYPE_BLAKE3,
 )
-from longtail_tpu.formats.store_index import BlockIndex, StoreIndex, StoredBlock
-from longtail_tpu.formats.version_index import FormatError, VersionIndex
+from longtail_jax.formats.store_index import BlockIndex, StoreIndex, StoredBlock
+from longtail_jax.formats.version_index import FormatError, VersionIndex
 
 
 def make_version_index() -> VersionIndex:
@@ -131,9 +131,9 @@ def test_merge_version_index():
     first-seen in merged order; merge with self is idempotent."""
     import numpy as np
 
-    from longtail_tpu.core.indexing import create_version_index
-    from longtail_tpu.core.merge import merge_version_index
-    from longtail_tpu.stores.storage import MemStorage
+    from longtail_jax.core.indexing import create_version_index
+    from longtail_jax.core.merge import merge_version_index
+    from longtail_jax.stores.storage import MemStorage
 
     def make(files):
         st = MemStorage()
@@ -164,7 +164,7 @@ def test_merge_version_index():
     # chunk table is deduplicated
     assert len(np.unique(merged.chunk_hashes)) == merged.chunk_count
     # round-trips through the zero-parse format
-    from longtail_tpu.formats.version_index import VersionIndex
+    from longtail_jax.formats.version_index import VersionIndex
     again = VersionIndex.from_bytes(merged.to_bytes())
     assert again.paths() == merged.paths()
     assert np.array_equal(again.chunk_hashes, merged.chunk_hashes)
@@ -180,9 +180,9 @@ def test_merge_version_index_validates():
 
     import pytest
 
-    from longtail_tpu.core.indexing import create_version_index
-    from longtail_tpu.core.merge import merge_version_index
-    from longtail_tpu.stores.storage import MemStorage
+    from longtail_jax.core.indexing import create_version_index
+    from longtail_jax.core.merge import merge_version_index
+    from longtail_jax.stores.storage import MemStorage
 
     st = MemStorage()
     st.create_dir("r")

@@ -4,9 +4,9 @@ vectors (test/test.cpp:452-488) plus scalar/batched cross-checks."""
 import numpy as np
 import pytest
 
-from longtail_tpu.ops import blake3 as b3
-from longtail_tpu.ops.hash_registry import get_hasher
-from longtail_tpu.formats.constants import (
+from longtail_jax.ops import blake3 as b3
+from longtail_jax.ops.hash_registry import get_hasher
+from longtail_jax.formats.constants import (
     HASH_TYPE_BLAKE2, HASH_TYPE_BLAKE3, HASH_TYPE_MEOW, fourcc)
 
 KAT_INPUT = (b"This is the first test string which is fairly long and should "
@@ -64,7 +64,7 @@ def test_blake3_batched_jax():
 
 def test_meow_known_answer():
     """Reference suite KAT (test/test.cpp:476-485): string incl. NUL."""
-    from longtail_tpu.ops import meow
+    from longtail_jax.ops import meow
 
     s = (b"This is the first test string which is fairly long and should"
          b" - reconstructed properly, than you very much\x00")
@@ -74,7 +74,7 @@ def test_meow_known_answer():
 def test_meow_structure_cases():
     """Exercise every residual/lane path: sizes straddling 16/32/256-byte
     boundaries all hash without error and are distinct."""
-    from longtail_tpu.ops import meow
+    from longtail_jax.ops import meow
 
     sizes = [0, 1, 15, 16, 17, 31, 32, 33, 63, 64, 255, 256, 257,
              256 + 32 * 7, 1024]
@@ -89,8 +89,8 @@ def test_meow_structure_cases():
 def test_meow_registry_provider():
     import numpy as np
 
-    from longtail_tpu.formats.constants import HASH_TYPE_MEOW
-    from longtail_tpu.ops.hash_registry import get_hasher
+    from longtail_jax.formats.constants import HASH_TYPE_MEOW
+    from longtail_jax.ops.hash_registry import get_hasher
 
     h = get_hasher(HASH_TYPE_MEOW)
     data = np.zeros((2, 64), dtype=np.uint8)
@@ -108,7 +108,7 @@ def test_blake2_batched_matches_hashlib():
     import jax.numpy as jnp
     import numpy as np
 
-    from longtail_tpu.ops import blake2
+    from longtail_jax.ops import blake2
 
     rng = np.random.default_rng(9)
     sizes = [0, 1, 63, 64, 65, 128, 1000, 2048]
@@ -128,67 +128,79 @@ def test_blake2_batched_matches_hashlib():
             assert got[i] == want, (xp.__name__, sizes[i])
 
 
-def test_blake3_pallas_kernel_matches_batched():
-    """Pallas leaf+tree kernel (interpret mode on CPU) == numpy batched."""
-    import jax.numpy as jnp
+def _ranges_case(rng, layout, n_bytes):
+    """Random chunks per size class at unaligned starts (leaf-edge sizes
+    first, a padding row of size 0 last) -> (data, blob, starts, sizes)."""
     import numpy as np
 
-    from longtail_tpu.ops import blake3 as b3
-    from longtail_tpu.ops.blake3_kernel import hash_chunks_words_device
+    data = rng.integers(0, 256, n_bytes, dtype=np.uint8)
+    blob, starts, sizes = [], [], []
+    for cls, rows in layout:
+        sz = rng.integers(1, cls + 1, rows).astype(np.int32)
+        edges = [1, 63, 64, 65, 1023, 1024, 1025, cls - 1, cls]
+        sz[: len(edges)] = [min(e, cls) for e in edges]
+        sz[-1] = 0
+        st = rng.integers(0, n_bytes - cls, rows).astype(np.int32)
+        blob += [st, sz]
+        starts.append(st)
+        sizes.append(sz)
+    return (data, np.concatenate(blob), np.concatenate(starts),
+            np.concatenate(sizes))
 
+
+def test_blake3_triton_kernel_matches_batched():
+    """The stage-3 Triton BLAKE3 kernel (interpret mode) == the batched
+    numpy hasher over the same chunks: single- and multi-leaf classes,
+    unaligned starts, leaf and block edges."""
     import jax
+    import numpy as np
+
+    from longtail_jax.ops import blake3 as b3
+    from longtail_jax.ops.blake3_kernel import hash_layout
 
     rng = np.random.default_rng(11)
-    # jit the call: interpret-mode pallas outside jit dispatches every op
-    # of the 16-block compression chain eagerly (minutes); compiled it's
-    # one CPU program
-    fn = jax.jit(hash_chunks_words_device)
-    # one shape: its lens edges cover empty/single-leaf/multi-leaf lanes,
-    # and the interpret-mode compile is minutes (persistent-cached after)
-    for rows, padded in [(64, 16384)]:
-        data = np.zeros((rows, padded), np.uint8)
-        lens = rng.integers(1, padded + 1, size=(rows,)).astype(np.uint32)
-        # exercise leaf-count edges: empty, single leaf, full
-        lens[0] = 0
-        lens[1] = 1
-        lens[2] = 1024
-        lens[3] = min(1025, padded)
-        lens[4] = padded
-        for i in range(rows):
-            data[i, :lens[i]] = rng.integers(
-                0, 256, size=lens[i], dtype=np.uint8)
-        words = np.frombuffer(data.tobytes(), "<u4").reshape(rows, padded // 4)
-        lo, hi = fn(jnp.asarray(words), jnp.asarray(lens))
-        got = (np.asarray(lo).astype(np.uint64)
-               | (np.asarray(hi).astype(np.uint64) << np.uint64(32)))
-        nlo, nhi = b3.hash_chunks_words(words, lens, xp=np)
+    layout = ((1024, 128), (4096, 64), (16384, 16))
+    data, blob, starts, sizes = _ranges_case(rng, layout, 1 << 20)
+    words = np.concatenate([data, np.zeros(32768, np.uint8)]).view("<u4")
+    lo, hi = jax.jit(lambda w, b: hash_layout(w, b, layout,
+                                              interpret=True))(words, blob)
+    got = (np.asarray(lo).astype(np.uint64)
+           | (np.asarray(hi).astype(np.uint64) << np.uint64(32)))
+    off = 0
+    for cls, rows in layout:
+        st, sz = starts[off: off + rows], sizes[off: off + rows]
+        chunks = np.zeros((rows, cls), np.uint8)
+        for r in range(rows):
+            chunks[r, : sz[r]] = data[st[r]: st[r] + sz[r]]
+        nlo, nhi = b3.hash_chunks_words(chunks.view("<u4"), sz, xp=np)
         want = nlo.astype(np.uint64) | (nhi.astype(np.uint64) << np.uint64(32))
-        assert (got == want).all(), (rows, padded)
+        live = sz > 0
+        np.testing.assert_array_equal(got[off: off + rows][live], want[live])
+        off += rows
 
 
-def test_blake2_pallas_kernel_matches_batched():
-    """BLAKE2s Pallas kernel (interpret on CPU) == numpy batched."""
+def test_blake2_device_stage3_matches_hashlib():
+    """The blake2 device stage 3 (plain XLA pack + batched BLAKE2s) ==
+    hashlib.blake2s digest_size=8 over chunks at unaligned starts."""
     import hashlib
 
     import jax
-    import jax.numpy as jnp
     import numpy as np
 
-    from longtail_tpu.ops.blake2_kernel import hash_chunks_words_device
+    from longtail_jax.parallel import backend
+    from longtail_jax.parallel.pipeline import stage3_body
 
     rng = np.random.default_rng(13)
-    rows, padded = 256, 2048
-    data = np.zeros((rows, padded), np.uint8)
-    lens = rng.integers(0, padded + 1, size=(rows,)).astype(np.uint32)
-    lens[:4] = [0, 1, 64, 65]
-    for i in range(rows):
-        data[i, :lens[i]] = rng.integers(0, 256, size=lens[i], dtype=np.uint8)
-    words = np.frombuffer(data.tobytes(), "<u4").reshape(rows, padded // 4)
-    lo, hi = jax.jit(hash_chunks_words_device)(
-        jnp.asarray(words), jnp.asarray(lens))
+    layout = ((2048, 64),)
+    data, blob, starts, sizes = _ranges_case(rng, layout, 1 << 16)
+    words2d = np.concatenate([data, np.zeros(8192, np.uint8)]).view(
+        "<u4").reshape(-1, 128)
+    lo, hi = jax.jit(stage3_body(layout, "blake2", backend.CPU))(
+        words2d, blob)
     got = (np.asarray(lo).astype(np.uint64)
            | (np.asarray(hi).astype(np.uint64) << np.uint64(32)))
-    for i in range(0, rows, 13):
+    for i in range(len(sizes) - 1):
         want = int.from_bytes(hashlib.blake2s(
-            data[i, :lens[i]].tobytes(), digest_size=8).digest(), "little")
+            data[starts[i]: starts[i] + sizes[i]].tobytes(),
+            digest_size=8).digest(), "little")
         assert int(got[i]) == want, i

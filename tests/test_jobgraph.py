@@ -7,7 +7,7 @@ import time
 
 import pytest
 
-from longtail_tpu.parallel.jobgraph import JobGraph, Suspend
+from longtail_jax.parallel.jobgraph import JobGraph, Suspend
 
 
 def test_dependencies_order_and_results():

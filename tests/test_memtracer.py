@@ -6,7 +6,7 @@ Reference: lib/memtracer/longtail_memtracer.c:32-78 (context stats),
 
 import numpy as np
 
-from longtail_tpu.utils import memtracer
+from longtail_jax.utils import memtracer
 
 
 def test_context_attribution_and_peak():
@@ -55,7 +55,7 @@ def test_csv_dump(tmp_path):
 
 
 def test_cli_mem_tracer_flag(tmp_path, capsys):
-    from longtail_tpu.cli import main
+    from longtail_jax.cli import main
 
     src = tmp_path / "src"
     src.mkdir()

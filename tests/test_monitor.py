@@ -3,11 +3,11 @@
 
 import numpy as np
 
-from longtail_tpu import api
-from longtail_tpu.stores.compressblockstore import CompressBlockStore
-from longtail_tpu.stores.fsblockstore import FSBlockStore
-from longtail_tpu.stores.storage import MemStorage
-from longtail_tpu.utils.monitor import Monitor, set_monitor
+from longtail_jax import api
+from longtail_jax.stores.compressblockstore import CompressBlockStore
+from longtail_jax.stores.fsblockstore import FSBlockStore
+from longtail_jax.stores.storage import MemStorage
+from longtail_jax.utils.monitor import Monitor, set_monitor
 
 
 class Recorder(Monitor):
@@ -52,7 +52,7 @@ def test_monitor_sees_full_lifecycle():
 def test_detailed_progress_renders():
     import io
 
-    from longtail_tpu.utils.detailed_progress import TerminalDetailedProgress
+    from longtail_jax.utils.detailed_progress import TerminalDetailedProgress
 
     buf = io.StringIO()
     mon = TerminalDetailedProgress(out=buf, interval=0.0)

@@ -46,10 +46,10 @@ def run_two_process_upsync(tmp: str, timeout: int = 300) -> None:
     _build_tree(src)
 
     # single-process reference
-    from longtail_tpu import api
-    from longtail_tpu.stores.compressblockstore import CompressBlockStore
-    from longtail_tpu.stores.fsblockstore import FSBlockStore
-    from longtail_tpu.stores.storage import FSStorage
+    from longtail_jax import api
+    from longtail_jax.stores.compressblockstore import CompressBlockStore
+    from longtail_jax.stores.fsblockstore import FSBlockStore
+    from longtail_jax.stores.storage import FSStorage
 
     st = FSStorage()
     store_s = CompressBlockStore(
@@ -78,7 +78,7 @@ def run_two_process_upsync(tmp: str, timeout: int = 300) -> None:
     for pid in range(2):
         e = dict(env, LT_MH_PID=str(pid))
         procs.append(subprocess.Popen(
-            [sys.executable, "-m", "longtail_tpu.parallel.multihost"],
+            [sys.executable, "-m", "longtail_jax.parallel.multihost"],
             env=e, cwd=os.path.dirname(os.path.dirname(
                 os.path.abspath(__file__))),
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
@@ -111,7 +111,7 @@ def run_two_process_upsync(tmp: str, timeout: int = 300) -> None:
     # and the merged store serves a full reconstruction
     store2 = CompressBlockStore(FSBlockStore(FSStorage(), store_m))
     out_dir = os.path.join(tmp, "out")
-    from longtail_tpu.formats.version_index import VersionIndex
+    from longtail_jax.formats.version_index import VersionIndex
     api.downsync(store2, st, out_dir, VersionIndex.from_bytes(lvi_mesh),
                  workers=4)
 

@@ -1,4 +1,4 @@
-"""Native host fast paths (longtail_tpu/native/*.c) vs the Python oracles.
+"""Native host fast paths (longtail_jax/native/*.c) vs the Python oracles.
 
 The golden-vector suites already run through the public entry points (which
 prefer the native code when built); these tests pin the native/Python
@@ -10,24 +10,36 @@ import os
 import numpy as np
 import pytest
 
-from longtail_tpu.ops import blake3, cdc
+from longtail_jax.ops import blake3, cdc
 
 
 def test_no_native_env_forces_fallback():
-    """LONGTAIL_TPU_NO_NATIVE must defeat the cached-.so fast path, and
+    """LONGTAIL_NO_NATIVE must defeat the cached-.so fast path, and
     when CI sets it the suite must actually be exercising pure Python."""
-    from longtail_tpu import native
+    from longtail_jax import native
 
-    if os.environ.get("LONGTAIL_TPU_NO_NATIVE"):
+    if os.environ.get("LONGTAIL_NO_NATIVE"):
         assert cdc._native() is None
         assert blake3._native() is None
-        assert native.load("lz4_block", ["lz4_block.c"]) is None
+        assert native.load("lz4_block") is None
     else:
-        os.environ["LONGTAIL_TPU_NO_NATIVE"] = "1"
+        os.environ["LONGTAIL_NO_NATIVE"] = "1"
         try:
-            assert native.load("lz4_block", ["lz4_block.c"]) is None
+            assert native.load("lz4_block") is None
         finally:
-            del os.environ["LONGTAIL_TPU_NO_NATIVE"]
+            del os.environ["LONGTAIL_NO_NATIVE"]
+
+
+def test_no_native_env_under_the_former_package_name():
+    """The switch keeps working under its older, package-prefixed name."""
+    from longtail_jax import native
+
+    name = "LONGTAIL_FORMER_NO_NATIVE"
+    os.environ[name] = "1"
+    try:
+        assert native.load("lz4_block") is None
+    finally:
+        del os.environ[name]
 
 
 @pytest.mark.skipif(cdc._native() is None, reason="no C compiler")
@@ -66,9 +78,9 @@ def test_blake3_native_matches_oracle():
 
 @pytest.mark.skipif(blake3._native() is None, reason="no C compiler")
 def test_hash_chunk_batch_uses_native_and_matches():
-    from longtail_tpu.core.indexing import hash_chunk_batch
-    from longtail_tpu.ops.hash_registry import get_hasher
-    from longtail_tpu.formats.constants import HASH_TYPE_BLAKE3
+    from longtail_jax.core.indexing import hash_chunk_batch
+    from longtail_jax.ops.hash_registry import get_hasher
+    from longtail_jax.formats.constants import HASH_TYPE_BLAKE3
 
     rng = np.random.default_rng(9)
     data = rng.integers(0, 256, 1 << 18, dtype=np.uint8)

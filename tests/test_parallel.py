@@ -1,6 +1,6 @@
 """Bit-exactness of the device (jax) chunk+hash step vs the host oracle.
 
-The device step (longtail_tpu/parallel/device_chunker.py) must produce, for
+The device step (longtail_jax/parallel/device_chunker.py) must produce, for
 every part lane, exactly the chunk boundaries of ops/cdc.chunk_part (itself
 golden-verified against the reference chunker, see test_chunker.py) and
 exactly the BLAKE3-64 chunk hashes of ops/blake3.hash64.
@@ -12,8 +12,8 @@ import pytest
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 
-from longtail_tpu.ops import blake3, cdc  # noqa: E402
-from longtail_tpu.parallel.device_chunker import (  # noqa: E402
+from longtail_jax.ops import blake3, cdc  # noqa: E402
+from longtail_jax.parallel.device_chunker import (  # noqa: E402
     ChunkerConfig,
     make_index_parts_fn,
 )

@@ -7,11 +7,11 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from longtail_tpu.core.indexing import create_version_index  # noqa: E402
-from longtail_tpu.parallel.pipeline import DevicePartIndexer  # noqa: E402
-from longtail_tpu.ops import blake3, cdc  # noqa: E402
-from longtail_tpu.formats.constants import chunker_params_from_target  # noqa: E402
-from longtail_tpu.stores.storage import MemStorage  # noqa: E402
+from longtail_jax.core.indexing import create_version_index  # noqa: E402
+from longtail_jax.parallel.pipeline import DevicePartIndexer  # noqa: E402
+from longtail_jax.ops import blake3, cdc  # noqa: E402
+from longtail_jax.formats.constants import chunker_params_from_target  # noqa: E402
+from longtail_jax.stores.storage import MemStorage  # noqa: E402
 
 
 def _mem_tree(rng, spec):
@@ -19,7 +19,7 @@ def _mem_tree(rng, spec):
     st.create_dir("src")
     for path, size in spec:
         data = rng.integers(0, 256, size=size, dtype=np.uint8).tobytes()
-        from longtail_tpu.stores.storage import ensure_parent_dirs
+        from longtail_jax.stores.storage import ensure_parent_dirs
         ensure_parent_dirs(st, f"src/{path}")
         st.write(f"src/{path}", data)
     return st

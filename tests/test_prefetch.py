@@ -8,9 +8,9 @@ import time
 import numpy as np
 import pytest
 
-from longtail_tpu.formats.store_index import BlockIndex, StoredBlock
-from longtail_tpu.stores.blockstore import BlockStoreBase
-from longtail_tpu.stores.prefetchblockstore import PrefetchBlockStore
+from longtail_jax.formats.store_index import BlockIndex, StoredBlock
+from longtail_jax.stores.blockstore import BlockStoreBase
+from longtail_jax.stores.prefetchblockstore import PrefetchBlockStore
 
 
 class SlowStore(BlockStoreBase):
@@ -100,7 +100,7 @@ def test_share_store_coalesces_concurrent_gets():
     (lib/shareblockstore/longtail_shareblockstore.c waiter lists)."""
     from concurrent.futures import ThreadPoolExecutor
 
-    from longtail_tpu.stores.shareblockstore import ShareBlockStore
+    from longtail_jax.stores.shareblockstore import ShareBlockStore
 
     inner = SlowStore()
     inner.add(42)
@@ -140,7 +140,7 @@ def test_share_store_coalesces_concurrent_gets():
 def test_share_store_propagates_errors_to_all_waiters():
     from concurrent.futures import ThreadPoolExecutor
 
-    from longtail_tpu.stores.shareblockstore import ShareBlockStore
+    from longtail_jax.stores.shareblockstore import ShareBlockStore
 
     inner = SlowStore(latency=0.05)  # block 99 never added -> KeyError
     store = ShareBlockStore(inner)

@@ -10,15 +10,15 @@ import tempfile
 import numpy as np
 import pytest
 
-from longtail_tpu import api
-from longtail_tpu.stores.fsblockstore import FSBlockStore
-from longtail_tpu.stores.storage import (
+from longtail_jax import api
+from longtail_jax.stores.fsblockstore import FSBlockStore
+from longtail_jax.stores.storage import (
     FSStorage,
     MemStorage,
     ensure_parent_dirs,
 )
 
-from tests.test_roundtrip import read_tree
+from test_roundtrip import read_tree
 
 
 def test_case_collision_paths():
@@ -119,7 +119,7 @@ def test_large_single_asset_roundtrip():
                 want.update(chunk)
                 off += len(chunk)
 
-        from longtail_tpu.formats import constants as C
+        from longtail_jax.formats import constants as C
         store = FSBlockStore(st, "store")
         vi, _ = api.upsync(st, "src", store, workers=4,
                            compression_tag=C.COMPRESSION_TYPE_NONE)

@@ -5,17 +5,17 @@ version into a store, reconstruct bit-exact, then incremental delta sync."""
 import numpy as np
 import pytest
 
-from longtail_tpu import api
-from longtail_tpu.core import store_algebra
-from longtail_tpu.formats import constants as C
-from longtail_tpu.stores.compressblockstore import CompressBlockStore
-from longtail_tpu.stores.fsblockstore import FSBlockStore
-from longtail_tpu.stores.storage import FSStorage, MemStorage
+from longtail_jax import api
+from longtail_jax.core import store_algebra
+from longtail_jax.formats import constants as C
+from longtail_jax.stores.compressblockstore import CompressBlockStore
+from longtail_jax.stores.fsblockstore import FSBlockStore
+from longtail_jax.stores.storage import FSStorage, MemStorage
 
 
 def make_source(storage, root: str, rng) -> dict[str, bytes]:
     files = {
-        "readme.txt": b"hello longtail tpu\n" * 10,
+        "readme.txt": b"hello longtail\n" * 10,
         "bin/a.dat": rng.integers(0, 256, 100_000, dtype=np.uint8).tobytes(),
         "bin/b.dat": rng.integers(0, 4, 150_000, dtype=np.uint8).tobytes(),
         "bin/sub/c.bin": rng.integers(0, 256, 1_000, dtype=np.uint8).tobytes(),
@@ -33,7 +33,7 @@ def make_source(storage, root: str, rng) -> dict[str, bytes]:
 
 
 def read_tree(storage, root: str) -> dict[str, bytes]:
-    from longtail_tpu.stores.storage import walk_files
+    from longtail_jax.stores.storage import walk_files
     out = {}
     for path, size, _perm in walk_files(storage, root):
         if not path.endswith("/"):

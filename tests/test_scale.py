@@ -8,8 +8,8 @@ import time
 import numpy as np
 import pytest
 
-from longtail_tpu.formats.store_index import StoreIndex
-from longtail_tpu.formats.version_index import VersionIndex
+from longtail_jax.formats.store_index import StoreIndex
+from longtail_jax.formats.version_index import VersionIndex
 
 
 def synth_version(n_assets: int, chunks_per_asset: int) -> VersionIndex:
@@ -65,7 +65,7 @@ def million():
 
 
 def test_asset_part_lookup_scales(million):
-    from longtail_tpu.core.write import create_asset_part_lookup
+    from longtail_jax.core.write import create_asset_part_lookup
 
     vi, _ = million
     t0 = time.process_time()          # CPU time: immune to co-tenants
@@ -78,7 +78,7 @@ def test_asset_part_lookup_scales(million):
 
 
 def test_block_write_infos_scale(million):
-    from longtail_tpu.core.change import _build_block_write_infos
+    from longtail_jax.core.change import _build_block_write_infos
 
     vi, si = million
     t0 = time.process_time()          # CPU time: immune to co-tenants
@@ -94,7 +94,7 @@ def test_block_write_infos_scale(million):
 def test_block_write_infos_matches_oracle():
     """Vectorized plan == a straightforward dict/loop oracle on a small
     randomized instance (including duplicate chunks across blocks)."""
-    from longtail_tpu.core.change import _build_block_write_infos
+    from longtail_jax.core.change import _build_block_write_infos
 
     vi = synth_version(n_assets=13, chunks_per_asset=7)
     si = synth_store(vi, chunks_per_block=5)
@@ -126,7 +126,7 @@ def test_block_write_infos_matches_oracle():
 
 
 def test_required_chunk_hashes_scale(million):
-    from longtail_tpu.core.diff import VersionDiff, get_required_chunk_hashes
+    from longtail_jax.core.diff import VersionDiff, get_required_chunk_hashes
 
     vi, _ = million
     z = np.zeros(0, np.int64)
@@ -148,7 +148,7 @@ def test_required_chunk_hashes_scale(million):
 
 
 def test_existing_store_index_scales(million):
-    from longtail_tpu.core.dedup import get_existing_store_index
+    from longtail_jax.core.dedup import get_existing_store_index
 
     vi, si = million
     t0 = time.process_time()          # CPU time: immune to co-tenants

@@ -6,8 +6,8 @@ directory (src/longtail.c:1656-1790).
 
 import numpy as np
 
-from longtail_tpu.core.indexing import get_files_recursively
-from longtail_tpu.stores.storage import (
+from longtail_jax.core.indexing import get_files_recursively
+from longtail_jax.stores.storage import (
     FSStorage,
     MemStorage,
     walk_files,
@@ -79,7 +79,7 @@ def test_map_file_fs_and_mem(tmp_path):
     """map_file returns a zero-copy read-only view on both storages."""
     import numpy as np
 
-    from longtail_tpu.stores.storage import (
+    from longtail_jax.stores.storage import (
         FSStorage,
         MemStorage,
         map_or_read,

@@ -15,7 +15,7 @@ import ctypes.util
 import numpy as np
 import pytest
 
-from longtail_tpu.ops import zstd, zstd_frame
+from longtail_jax.ops import zstd, zstd_frame
 
 
 def _libzstd():

@@ -2,7 +2,7 @@
 
 The reference uses upstream zstd as its default codec (cmd/main.c:2988,
 lib/zstd/longtail_zstd.c).  Ours is implemented from RFC 8878
-(longtail_tpu/ops/zstd_frame.py); these tests cross-validate both directions
+(longtail_jax/ops/zstd_frame.py); these tests cross-validate both directions
 against the real library: our frames must decode with libzstd, and
 libzstd-produced frames (all compression levels = all entropy modes) must
 decode with ours.
@@ -15,7 +15,7 @@ import random
 
 import pytest
 
-from longtail_tpu.ops import zstd_frame as Z
+from longtail_jax.ops import zstd_frame as Z
 
 
 class LibZstd:
@@ -100,7 +100,7 @@ def test_libzstd_frames_decode_with_ours(libzstd, name, level):
 def test_ratio_vs_lz4():
     """zstd must beat our LZ4 on compressible mixed data (the point of
     having it; reference ratio context: CHANGELOG.md 3.4-4.1x)."""
-    from longtail_tpu.ops import lz4
+    from longtail_jax.ops import lz4
 
     data = corpus()["multiblock"]
     z = len(Z.compress(data))
@@ -127,9 +127,9 @@ def test_truncation_rejected():
 
 def test_brotli_codec_roundtrip():
     """Brotli parity tags (system libbrotli-backed; skipped if absent)."""
-    from longtail_tpu.formats import constants as C
-    from longtail_tpu.ops import brotli
-    from longtail_tpu.ops.compression_registry import get_codec, supported_tags
+    from longtail_jax.formats import constants as C
+    from longtail_jax.ops import brotli
+    from longtail_jax.ops.compression_registry import get_codec, supported_tags
 
     if not brotli.available():
         pytest.skip("libbrotli not on this host")
@@ -151,9 +151,9 @@ def test_brotli_tags_always_registered_and_decodable_without_lib():
     raises a clear actionable error (VERDICT r4 missing #4)."""
     import pytest
 
-    from longtail_tpu.formats import constants as C
-    from longtail_tpu.ops import brotli
-    from longtail_tpu.ops.compression_registry import (
+    from longtail_jax.formats import constants as C
+    from longtail_jax.ops import brotli
+    from longtail_jax.ops.compression_registry import (
         BrotliCodec,
         get_codec,
         supported_tags,
@@ -187,16 +187,16 @@ def test_brotli_store_roundtrip():
     import numpy as np
     import pytest
 
-    from longtail_tpu import api
-    from longtail_tpu.formats import constants as C
-    from longtail_tpu.ops import brotli
-    from longtail_tpu.stores.compressblockstore import CompressBlockStore
-    from longtail_tpu.stores.fsblockstore import FSBlockStore
-    from longtail_tpu.stores.storage import MemStorage
+    from longtail_jax import api
+    from longtail_jax.formats import constants as C
+    from longtail_jax.ops import brotli
+    from longtail_jax.stores.compressblockstore import CompressBlockStore
+    from longtail_jax.stores.fsblockstore import FSBlockStore
+    from longtail_jax.stores.storage import MemStorage
 
     if not brotli.available():
         pytest.skip("libbrotli not on this host")
-    from tests.test_roundtrip import make_source, read_tree
+    from test_roundtrip import make_source, read_tree
 
     rng = np.random.default_rng(4)
     st = MemStorage()

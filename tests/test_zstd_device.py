@@ -8,7 +8,7 @@ import pytest
 
 jax = pytest.importorskip("jax")
 
-from longtail_tpu.ops import zstd, zstd_device, zstd_frame  # noqa: E402
+from longtail_jax.ops import zstd, zstd_device, zstd_frame  # noqa: E402
 
 
 def _corpus(n):
@@ -26,7 +26,7 @@ def _corpus(n):
 def test_device_zstd_roundtrips_and_beats_level3_window():
     src = _corpus(4 << 20)
     host3 = zstd.compress(src, 3)
-    # default tier: TPU anchors + TPU Huffman literals + from-spec frame
+    # default tier: device anchors + device Huffman literals + from-spec frame
     # (no libzstd in the encode path).  Predefined FSE sequence tables
     # give up a hair vs libzstd's per-block optimal ones: within 0.5%.
     out = zstd_device.compress_block(src)
@@ -75,7 +75,7 @@ def test_sequence_walk_validates_bogus_anchors():
 
 def test_py_sequences_matches_native():
     src = _corpus(1 << 20)
-    from longtail_tpu.parallel.device_match import fast_block_anchors
+    from longtail_jax.parallel.device_match import fast_block_anchors
 
     words = jax.device_put(
         np.frombuffer(src, "<u4"))
